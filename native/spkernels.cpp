@@ -6,7 +6,7 @@
 // lkdv/LinearSolver.py:81).  This module provides the same capabilities
 // in-tree: CSR SpMV, ILU(0) factorisation, and the L/U triangular solves.
 // They serve as the host baseline for benchmarks, the oracle for validating
-// the TPU-side preconditioners, and a fast `exact`-style path for fixtures.
+// the device preconditioners, and a fast `exact`-style path for fixtures.
 //
 // Build: g++ -O3 -march=native -shared -fPIC spkernels.cpp -o libspkernels.so
 

@@ -5,9 +5,10 @@ Runs the distributed benchmark (experiments.scaling.dist_efficiency) as
 collectives — and writes the BASELINE efficiency table together with the
 measured collective-latency floor that dominates it on a loopback surrogate.
 This is the CI-able certificate for the "≥80% efficiency at 2 hosts" north
-star (BASELINE.md): on a real pod the same code path is launched once per
-host (``python -m structurepreservingiterativesolvers_tpu dist-bench`` with
-pod metadata auto-detected by jax.distributed.initialize).
+star (BASELINE.md): on a real cluster the same code path is launched once
+per host (``python -m structurepreservingiterativesolvers_tpu dist-bench``
+with ``SPIS_COORDINATOR`` / ``SPIS_NUM_PROCESSES`` / ``SPIS_PROCESS_ID``)
+and one process drives all GPUs of its host.
 
 Reference gap being filled: the reference has NO distributed backend at all
 (SURVEY §2.3/§5.8; its only parallelism is the independent-run Popen pool,
@@ -27,9 +28,10 @@ HEADER = """# Multi-host scaling (distributed CGMRES)
 Strong scaling of the sharded CGMRES solve and DIA SpMV across *process*
 (host-surrogate) counts.  Each row is one distributed job: N processes ×
 {dpp} virtual CPU device(s) each, one global host-major mesh, gloo
-collectives across process boundaries — the exact code path a TPU pod runs
-per host (`parallel/distributed.py::init_distributed` + `global_mesh`),
-with DCN taking the place of the loopback gloo transport.
+collectives across process boundaries — the code path a multi-host GPU
+cluster runs per host (`parallel/distributed.py::init_distributed` +
+`global_mesh`), with the network taking the place of the loopback gloo
+transport.
 
 efficiency = t_base · d_base / (t_N · d_N)  (strong scaling, devices-normalised).
 
@@ -41,7 +43,7 @@ On this machine ({ncpu} cores) the cross-process collective latency floor is
 Arnoldi sweep issues hundreds of such reductions, so the 2-process rows are
 latency-bound by the loopback-gloo transport, not by the framework: the
 efficiency columns on this host measure gloo, not the solver.  What the
-table **does** certify is the part that transfers to a pod:
+table **does** certify is the part that transfers to a cluster:
 
 * the multi-process code path runs end-to-end (jax.distributed init,
   host-major global mesh, GSPMD collectives across process boundaries);
@@ -51,12 +53,9 @@ table **does** certify is the part that transfers to a pod:
 * the per-device compute (SpMV shards, replicated KKT endgame) partitions
   exactly as designed.
 
-On a v5e pod the same reduction rides ICI at ~1-10 µs — 3-4 orders below
-this floor — while per-device SpMV work at reference-scale sizes (heat
-M=2¹¹: 29M nnz) is hundreds of µs: the collective-to-compute ratio that
-decides the ≥80% north star is structural, and on pod hardware it is
-~1e-2, not the ~1e3 this surrogate imposes.  The artifact to produce on a
-real pod is one `dist-bench` run per host; the table schema is identical.
+On GPUs the same reduction runs over NVLink within a host and the network
+across hosts (not measured).  The artifact to produce on a real cluster is
+one `dist-bench` run per host; the table schema is identical.
 
 Generated by scripts/run_dist_scaling.py.
 
@@ -78,7 +77,9 @@ def main():
         )
         sections.append((dpp, M, rows))
 
-    import pandas as pd
+    from structurepreservingiterativesolvers_tpu.experiments.report import (
+        markdown_table,
+    )
 
     cols = ["hosts", "devices", "n", "nnz", "spmv_time_s", "spmv_nnz_per_s",
             "collective_latency_s", "solve_time_s", "steps", "deviation",
@@ -98,11 +99,9 @@ def main():
                 f"(max {total} devices on {ncpu} cores — "
                 f"{total / ncpu:.2g}× oversubscribed)\n\n"
             )
-            df = pd.DataFrame(rows)[[c for c in cols if c in rows[0]]]
-            for c in df.columns:
-                if df[c].dtype.kind == "f":
-                    df[c] = df[c].map(lambda v: f"{v:.3g}")
-            f.write(df.to_markdown(index=False))
+            f.write(markdown_table(
+                [{c: r[c] for c in cols if c in r} for r in rows],
+                floatfmt=".3g"))
             f.write("\n\n")
             f.write(
                 f"Certificates on the {rows[-1]['hosts']}-process global "

@@ -1,12 +1,12 @@
-"""structurepreservingiterativesolvers_tpu — a TPU-native structure-preserving
-Krylov solver framework.
+"""structurepreservingiterativesolvers_tpu — a structure-preserving Krylov
+solver framework in JAX, running on GPUs (and on the CPU for tests).
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of
+A from-scratch JAX/XLA re-design of the capability set of
 ``JamesJackaman/StructurePreservingIterativeSolvers`` (reference repo: CGMRES —
 constraint-satisfying flexible GMRES for structure-preserving FEM
 discretisations; see reference ``solvers.py``).  Nothing here is a port: the
 compute path is jit-compiled, fixed-shape, scan-based device code; sparse
-matrices live in TPU-friendly formats (DIA / ELL / BSR); the constrained
+matrices live in gather-free device formats (DIA / ELL / BSR); the constrained
 least-squares endgame runs as an on-device KKT solver instead of SLSQP; and
 distribution is expressed with ``jax.sharding`` meshes + collectives.
 

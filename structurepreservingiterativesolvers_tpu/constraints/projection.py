@@ -31,7 +31,7 @@ error at the solver tolerance, so the residual is unaffected at tol scale.
 
 Replaces nothing in the reference — the reference runs f64 end-to-end
 (reference solvers.py:266-270 checks deviations against ctol=1e-12 directly);
-this module is what makes that check *meaningful* on f32 TPU storage.
+this module is what makes that check *meaningful* on f32 storage.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import jax.numpy as jnp
+import numpy as np
 
 from ..ops import dd as _dd
 from .quadratic import QuadraticConstraint, dd_constraint_value, dd_supported
@@ -81,20 +82,22 @@ def _newton_direction(D, x, g, window: int = 0):
 
     if window:
         D = D * _window_mask(D, window)[None, :]
-    # Gram in f32 (an f64 cast would make this an n-sized emulated-f64
-    # matmul on TPU); Newton only needs ~1e-3 relative accuracy in G —
-    # the dd re-evaluation of g is what certifies the result
+    # Gram in f32 (an f64 cast would double the n-sized matmul's traffic);
+    # Newton only needs ~1e-3 relative accuracy in G — the dd
+    # re-evaluation of g is what certifies the result
     G = (D @ D.T).astype(jnp.float64)  # (m, m) tiny Gram
     # Tikhonov floor keeps a rank-deficient window from producing a huge
     # step (the accept-guard would reject it, but NaN/inf must never form)
     lam = 1e-12 * jnp.maximum(jnp.trace(G), 1e-30)
     alpha = solve_dense(G + lam * jnp.eye(G.shape[0], dtype=G.dtype), -g)
     # cast the (roundoff-sized) coefficients to f32 BEFORE the n-sized work:
-    # an f64 α would promote the axpy to emulated f64 on TPU
+    # an f64 α would promote the n-sized axpy to f64
     return alpha.astype(x.dtype) @ D
 
 
-_TAUS = 2.0 ** -jnp.arange(13, dtype=jnp.float64)  # 1, 1/2, …, 2^-12
+# a numpy constant: this module is first imported inside a jit trace
+# (solvers/cgmres.py), where a module-level jnp array would be a leaked tracer
+_TAUS = 2.0 ** -np.arange(13, dtype=np.float64)  # 1, 1/2, …, 2^-12
 
 
 # Shrinking-window ladder (measured, swe M=64..256 f32): the dense stages
@@ -182,9 +185,10 @@ def snap(x: jnp.ndarray, cons: Sequence[QuadraticConstraint],
                     quad.append(q)
                 lin = jnp.stack(lin)
                 quad = jnp.stack(quad)
-                gmod = (g[None, :] + _TAUS[:, None] * lin[None, :]
-                        + (_TAUS ** 2)[:, None] * quad[None, :])
-                tau = _TAUS[jnp.argmin(jnp.max(jnp.abs(gmod), axis=1))]
+                taus = jnp.asarray(_TAUS)
+                gmod = (g[None, :] + taus[:, None] * lin[None, :]
+                        + (taus ** 2)[:, None] * quad[None, :])
+                tau = taus[jnp.argmin(jnp.max(jnp.abs(gmod), axis=1))]
                 x_new = x + tau.astype(x.dtype) * dirn
             else:
                 x_new = x + dirn

@@ -14,7 +14,7 @@ preconditioned vector ``z_j``, so the reduced data gains
 after which the reduced constraint is the tiny dense form
 ``g(y) = t0 + t1·y + yᵀ T2 y`` with Jacobian ``t1 + 2 T2 y`` (M symmetric,
 as all reference invariant matrices are).  When the solver enters the
-constrained endgame mid-flight it catches up with a single MXU-batched SpMM
+constrained endgame mid-flight it catches up with a single batched SpMM
 over the existing basis instead of j separate rebuilds.
 
 ``M`` may be a sparse/dense matrix, a linear combination of matrices
@@ -168,15 +168,14 @@ def init_buffers(
     x0_zero: bool = False,
     dd_value: bool = False,
 ) -> ReducedBuffers:
-    """``cdtype`` is the reduction dtype: on f32 hardware the reduction and
-    the KKT endgame run in (emulated) f64 — the data is tiny and the
-    constraint certificate needs the headroom (mixed-precision mode).
+    """``cdtype`` is the reduction dtype: with f32 storage the reduction and
+    the KKT endgame run in f64 — the data is tiny and the constraint
+    certificate needs the headroom (mixed-precision mode).
 
     ``x0_zero`` (static) skips the g(x0) evaluation entirely — t0 = c exactly
     — saving an n-sized SpMV per constraint per solve on the common x0=None
-    path.  ``dd_value`` evaluates g(x0) in double-f32 instead of emulated f64
-    (TPU: every f64 op on an n-sized array is emulated, scripts/tpu_probe14;
-    the dd path is pure f32 VPU work, scripts/tpu_probe15/17)."""
+    path.  ``dd_value`` evaluates g(x0) in double-f32 instead of f64 (the
+    dd path keeps the n-sized work in f32 elementwise ops)."""
     cdtype = cdtype or x0.dtype
     if x0_zero:
         t0 = jnp.asarray(con.c).astype(cdtype)
@@ -218,21 +217,18 @@ def update_buffers(
     """Fold the new basis vector Z[j] into the reduced constraint.
 
     ``dd_reduce`` (static): do the n-sized work in double-f32 instead of the
-    buffer dtype.  On f32 TPU hardware the mixed-mode buffers are f64 and
-    every n-sized f64 op is emulated — the energy constraint's f64 SpMM was
-    ~12 ms of a 27 ms solve (scripts/tpu_probe18.py); the dd formulation is
-    pure f32 VPU work with ~2⁻⁴⁸ relative error, well inside the certificate
-    floor.
+    buffer dtype.  With f32 storage the mixed-mode buffers are f64; the dd
+    formulation keeps the n-sized work in f32 elementwise ops with ~2⁻⁴⁸
+    relative error, well inside the certificate floor.
 
     ``f32_reduce`` (static): do the n-sized work in PLAIN f32 and only cast
     the tiny results to the buffer dtype — the snap-first mode.  With the
     projection epilogue certifying the RETURNED iterate in dd, the in-loop
     reduced model only steers the KKT; its f32 evaluation noise
     (~eps32·scale) sits below what the f32 assembly can represent anyway,
-    so dd precision mid-loop buys nothing (scripts/tpu_probe26/27: the dd
-    catch-up was ~1.3-2.5 ms of a 13.5 ms solve; the f32 SpMM+MXU form is
-    tens of µs).  The safety-latch floor must then use eps32
-    (solvers/cgmres.py)."""
+    so dd precision mid-loop buys nothing, and the plain f32 SpMM + matmul
+    is several times cheaper than the dd catch-up.  The safety-latch floor
+    must then use eps32 (solvers/cgmres.py)."""
     cdtype = buf.t1.dtype
     if f32_reduce:
         zj = Z[j]
@@ -244,7 +240,7 @@ def update_buffers(
             u = (con.M @ zj).astype(Z.dtype)
             if not x0_zero:
                 t1j = t1j + jnp.dot(u, x0.astype(Z.dtype))
-            w = (0.5 * (Z @ u)).astype(cdtype)  # (k,) f32 MXU, tiny cast
+            w = (0.5 * (Z @ u)).astype(cdtype)  # (k,) f32 matvec, tiny cast
             T2 = T2.at[j, :].set(w).at[:, j].set(w)
         return ReducedBuffers(
             t0=buf.t0, t1=buf.t1.at[j].set(t1j.astype(cdtype)), T2=T2)
@@ -292,11 +288,11 @@ def catchup_buffers(
     """Recompute the full reduction in one batched pass (phase-entry catch-up).
 
     Inactive rows of Z are zero, so the result is correct for any active
-    prefix; cost is one SpMM + one (k,n)·(n,k) MXU matmul — or, with
+    prefix; cost is one SpMM + one (k,n)·(n,k) matmul — or, with
     ``dd_reduce`` (see ``update_buffers``), a vmapped double-f32 SpMM plus a
-    ``lax.map`` of row-dot passes, avoiding all n-sized emulated-f64 work —
-    or, with ``f32_reduce`` (the snap-first mode, see ``update_buffers``),
-    the plain f32 SpMM + MXU matmul with only the tiny results cast up.
+    ``lax.map`` of row-dot passes, avoiding all n-sized f64 work — or, with
+    ``f32_reduce`` (the snap-first mode, see ``update_buffers``), the plain
+    f32 SpMM + matmul with only the tiny results cast up.
     """
     cdtype = buf.t1.dtype
     if f32_reduce:
@@ -308,7 +304,7 @@ def catchup_buffers(
             U = (con.M @ Z.T).astype(Z.dtype)  # (n, k) f32 SpMM
             if not x0_zero:
                 t1 = t1 + U.T @ x0.astype(Z.dtype)
-            T2f = 0.5 * (Z @ U)  # MXU
+            T2f = 0.5 * (Z @ U)
         return ReducedBuffers(
             t0=buf.t0, t1=t1.astype(cdtype), T2=T2f.astype(cdtype))
     if _use_dd_reduction(con, Z, dd_reduce):
@@ -322,7 +318,7 @@ def catchup_buffers(
         if con.M is not None:
             if Z.shape[1] >= (1 << 21):
                 # vmap materialises per-diagonal (k, n) dd intermediates —
-                # ~ndiag·k·n·8 bytes, a 21 GB HBM OOM at heat M=2048; the
+                # ~ndiag·k·n·8 bytes, ~21 GB at heat M=2048; the
                 # sequential map keeps the per-row SpMV's temporaries (n,)
                 U = lax.map(
                     lambda row: _dd_matvec(
@@ -333,13 +329,12 @@ def catchup_buffers(
             else:
                 U = jax.vmap(
                     lambda h, l: _dd_matvec(con.M, _dd.DD(h, l))
-                )(Z, jnp.zeros_like(Z))  # (k, n) dd — batched rolls, f32 VPU
+                )(Z, jnp.zeros_like(Z))  # (k, n) dd — batched f32 rolls
             if not x0_zero:
                 w = _dd_matvec(con.M, _dd.from_f32(x0.astype(jnp.float32)))
                 t1_dd = _dd.add(t1_dd, _dd_rows_dot(Z, w))
             # T2[i, j] = ½ z_i · u_j — chunked map: c rows per iteration
-            # reads U once per chunk instead of once per row (4× faster than
-            # row-at-a-time on TPU, scripts/tpu_probe27.py) while keeping
+            # reads U once per chunk instead of once per row, while keeping
             # the intermediate at (c, k, n) instead of vmap's (k, k, n)
             k_ = Z.shape[0]
             c = 3
@@ -467,10 +462,9 @@ def dd_supported(M) -> bool:
 def dd_constraint_value(con: QuadraticConstraint, x) -> jnp.ndarray:
     """g(x) = ½ xᵀ M x + vᵀ x + c evaluated in double-f32 (x a ``dd.DD``).
 
-    This is the mixed-precision certificate path: on TPU every f64 array op
-    is emulated (~10× slower, see ops/dd.py preamble), so constraint *values*
-    — which need ~1e-14 relative accuracy for the safety latch — are computed
-    as unevaluated f32 pairs and only the final scalar is promoted.
+    This is the mixed-precision certificate path for f32 storage: constraint
+    *values* — which need ~1e-14 relative accuracy for the safety latch — are
+    computed as unevaluated f32 pairs and only the final scalar is promoted.
     """
     from ..ops import dd as _dd
 

@@ -1,18 +1,21 @@
 """Tabulation and plotting (parity with the reference ``visualise.py``
 modules and Evolve's DeviationPlotter).
 
-``tabulator`` builds a per-iteration DataFrame of residual norms and
-invariant deviations per solver (reference lkdv/visualise.py:13-59),
-optionally writing ``.tex``/``.csv``; ``convergence_plot`` renders the
-log-scale comparison figure (lkdv/visualise.py:63-112);
+``tabulator`` builds a per-iteration table (a list of row dicts) of
+residual norms and invariant deviations per solver (reference
+lkdv/visualise.py:13-59), optionally writing ``.tex``/``.csv``;
+``markdown_table`` formats such rows for the terminal; ``convergence_plot``
+renders the log-scale comparison figure (lkdv/visualise.py:63-112);
 ``deviation_plot`` renders invariant drift over a time evolution
-(lkdv/Evolve.py:70-114).
+(lkdv/Evolve.py:70-114).  Only the plots need matplotlib, imported when
+called.
 """
 
 from __future__ import annotations
 
+import csv
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -42,38 +45,74 @@ def _targets(system, names):
     return out
 
 
+def _fmt(v, floatfmt: str) -> str:
+    if v is None:
+        return ""
+    if isinstance(v, (float, np.floating)):
+        return format(float(v), floatfmt)
+    return str(v)
+
+
+def _columns(rows: Sequence[dict]) -> List[str]:
+    cols: List[str] = []
+    for r in rows:
+        cols.extend(c for c in r if c not in cols)
+    return cols
+
+
+def markdown_table(rows: Sequence[dict], floatfmt: str = ".2e") -> str:
+    """GitHub-markdown table of ``rows`` (one dict per row; columns in
+    first-seen order, a missing cell left blank, floats as ``floatfmt``)."""
+    cols = _columns(rows)
+    cells = [[_fmt(r.get(c), floatfmt) for c in cols] for r in rows]
+    widths = [max([len(c)] + [len(row[i]) for row in cells])
+              for i, c in enumerate(cols)]
+
+    def line(vals):
+        return "| " + " | ".join(
+            v.ljust(w) for v, w in zip(vals, widths)) + " |"
+
+    out = [line(cols), "|" + "|".join("-" * (w + 2) for w in widths) + "|"]
+    out += [line(row) for row in cells]
+    return "\n".join(out)
+
+
 def tabulator(system, dict_list: List[dict], filename: Optional[str] = None,
               print_table: bool = False):
-    """DataFrame of residuals + invariant deviations for each solver run.
+    """Per-iteration table of residuals + invariant deviations for each
+    solver run: ``{"rows": [...], "columns": [...], "names": [...]}``, row
+    ``i`` holding iteration ``i`` of every series long enough to have one.
 
     Each entry of ``dict_list`` is a solver info dict with history
     (``history=True`` runs)."""
-    import pandas as pd
-
-    df = pd.DataFrame()
+    series = {}
     names = []
     for data in dict_list:
         name = data["name"]
         names.append(name)
-        df = pd.concat(
-            [df, pd.DataFrame({f"{name} residual norm": data["res"]})], axis=1
-        )
+        series[f"{name} residual norm"] = [float(v) for v in data["res"]]
         inv_names, devs = _deviations(system, data["x"])
         for i, inv in enumerate(inv_names):
-            df = pd.concat(
-                [df, pd.DataFrame({f"{name} {inv} deviation": devs[:, i]})],
-                axis=1,
-            )
+            series[f"{name} {inv} deviation"] = [float(v) for v in devs[:, i]]
+    columns = list(series)
+    length = max((len(v) for v in series.values()), default=0)
+    rows = [{c: series[c][i] for c in columns if i < len(series[c])}
+            for i in range(length)]
     if filename is not None:
+        with open(filename + ".csv", "w", newline="") as fh:
+            writer = csv.DictWriter(fh, fieldnames=columns)
+            writer.writeheader()
+            writer.writerows(rows)
         with open(filename + ".tex", "w") as fh:
-            fh.write(df.to_latex(index=False))
-        df.to_csv(filename + ".csv", index=False)
+            fh.write("\\begin{tabular}{" + "r" * len(columns) + "}\n")
+            fh.write(" & ".join(columns) + " \\\\\n\\hline\n")
+            for r in rows:
+                fh.write(" & ".join(_fmt(r.get(c), ".6e") for c in columns)
+                         + " \\\\\n")
+            fh.write("\\end{tabular}\n")
     if print_table:
-        with pd.option_context("display.max_rows", None,
-                               "display.max_columns", None,
-                               "display.width", None):
-            print(df)
-    return {"df": df, "names": names}
+        print(markdown_table(rows, floatfmt=".6e"))
+    return {"rows": rows, "columns": columns, "names": names}
 
 
 def _ensure_plots_dir(path: Optional[str]) -> str:
@@ -89,16 +128,21 @@ def convergence_plot(vis_out, filename: Optional[str] = None, title: str = ""):
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    df = vis_out["df"]
+    rows = vis_out["rows"]
     names = vis_out["names"]
+
+    def column(col):
+        return np.asarray([r[col] for r in rows if col in r])
+
     colors = ["r", "b", "k", "g"]
     fig, ax = plt.subplots(figsize=(7, 5))
     for name, c in zip(names, colors):
-        ax.plot(df[f"{name} residual norm"], c + "-", lw=2, label=f"{name}: residual")
+        ax.plot(column(f"{name} residual norm"), c + "-", lw=2,
+                label=f"{name}: residual")
         styles = iter([":", "-.", "--", "-"])
-        for col in df.columns:
+        for col in vis_out["columns"]:
             if col.startswith(name) and col.endswith("deviation"):
-                ax.plot(np.abs(df[col]) + 1e-16, c + next(styles), lw=2,
+                ax.plot(np.abs(column(col)) + 1e-16, c + next(styles), lw=2,
                         label=f"{name}: {col.split(' ', 1)[1]}")
     ax.set_yscale("log")
     ax.set_xlabel("Iteration number")

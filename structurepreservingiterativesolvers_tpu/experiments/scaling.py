@@ -113,10 +113,9 @@ def solve_scaling(
 
 
 def report(rows) -> str:
-    import pandas as pd
+    from .report import markdown_table
 
-    df = pd.DataFrame(rows)
-    return df.to_markdown(index=False)
+    return markdown_table(rows, floatfmt=".4g")
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +168,9 @@ def dist_bench_worker(
 
     # collective latency floor: one global sum of a tiny sharded vector (the
     # shape of every MGS inner product).  On loopback-gloo CPU surrogates
-    # this is ~tens of ms and dominates everything; on a pod it rides
-    # ICI at ~µs — report it so efficiency numbers can be interpreted.
+    # this is ~tens of ms and dominates everything; on a device
+    # interconnect it is microseconds — report it so efficiency numbers can
+    # be interpreted.
     tiny = shard_vector(jnp.ones((nd * 8,), s.b.dtype), mesh)
     allred = jax.jit(lambda v: jnp.sum(v))
     allred(tiny).block_until_ready()
@@ -252,9 +252,10 @@ def dist_efficiency(
         r["solve_efficiency"] = base["solve_time_s"] / (r["solve_time_s"] * scale)
         r["spmv_efficiency"] = base["spmv_time_s"] / (r["spmv_time_s"] * scale)
     if to_markdown:
-        import pandas as pd
+        from .report import markdown_table
 
         cols = ["hosts", "devices", "spmv_time_s", "spmv_nnz_per_s",
                 "solve_time_s", "steps", "spmv_efficiency", "solve_efficiency"]
-        print(pd.DataFrame(rows)[cols].to_markdown(index=False))
+        print(markdown_table([{c: r[c] for c in cols} for r in rows],
+                             floatfmt=".4g"))
     return rows

@@ -46,8 +46,8 @@ def single_solve(
 
     if pre == "auto":
         # per-problem defaults mirroring the reference SingleSolve drivers:
-        # lkdvRK uses an ILU factor (lkdvRK/SingleSolve.py:19-21) → our MXU
-        # block-Jacobi; heat's AMG is built but disabled there
+        # lkdvRK uses an ILU factor (lkdvRK/SingleSolve.py:19-21) → our
+        # batched block-Jacobi; heat's AMG is built but disabled there
         # (heat/SingleSolve.py:33-36) → None
         if problem.lower() == "lkdvrk":
             pre = model.element_block_preconditioner(system)

@@ -83,8 +83,7 @@ class System:
         # M + ½dt·K pre-combined at assembly (host f64, exact): M and K share
         # the sparsity pattern, so the combined DIA HALVES every dd SpMV/SpMM
         # in the constraint catch-up and increments vs a MatComb of the two
-        # (the catch-up is the dominant constrained-phase cost, probe26 /
-        # BASELINE.md round-3 endgame decomposition)
+        # (the catch-up is the dominant constrained-phase cost)
         Mc = self.Emat if self.Emat is not None else MatComb(
             (1.0, 0.5 * dt), (self.Mmat, self.Lmat))
         energy = QuadraticConstraint(

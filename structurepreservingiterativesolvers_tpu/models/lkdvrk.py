@@ -188,9 +188,9 @@ def _mass_inverse(Mh: sp.csr_matrix, fem: Space1D) -> sp.csr_matrix:
 def element_block_preconditioner(system: "System", elems_per_block: int = 2,
                                  overlap: int = 0):
     """Block preconditioner coupling all fields and stages of
-    ``elems_per_block`` adjacent elements — the TPU-native stand-in for the
-    reference's SuperLU ILU factor (lkdvRK/Evolve.py:51-52): the per-block
-    dense solves run as one batched MXU matmul instead of sequential
+    ``elems_per_block`` adjacent elements — the data-parallel stand-in for
+    the reference's SuperLU ILU factor (lkdvRK/Evolve.py:51-52): the
+    per-block dense solves run as one batched matmul instead of sequential
     triangular solves.  ``overlap`` > 0 upgrades to restricted additive
     Schwarz with that many halo elements per side (periodic), cutting the
     iteration count further."""
@@ -300,7 +300,7 @@ def linforms(
         Mmat=from_scipy(Mh, dtype=dtype),
         Gmat=from_scipy(Gh, dtype=dtype),
         # DG mass inverse is block-diagonal per element → BSR: the
-        # consistent-field updates in step_update run as batched MXU block
+        # consistent-field updates in step_update run as batched block
         # matmuls (bsr_spmm) instead of a gathered ELL SpMV
         Minv=(
             bsr_from_scipy(_mass_inverse(Mh, fem), prob.degree + 1, dtype=dtype)

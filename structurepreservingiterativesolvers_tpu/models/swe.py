@@ -17,7 +17,7 @@ y-edges, ρ at centres — with the energy-conserving 4-point Coriolis average.
 The semi-discrete operator S is skew-symmetric in the energy inner product
 P = h²·diag(I, I, c²I), so the midpoint step conserves mass and energy
 exactly, giving the same constraint structure as the reference problem while
-mapping onto pure shift stencils (DIA diagonals — no gather) on TPU.
+mapping onto pure shift stencils (DIA diagonals — no gather).
 
 System:  A = I/dt − ½S,   b = (I/dt + ½S) z0   (identity mass matrix).
 """

@@ -1,17 +1,18 @@
 """Double-f32 ("dd") arithmetic: f64-grade accuracy from paired f32 ops.
 
-Motivation (TPU): XLA:TPU emulates f64, and ANY f64 op touching an n-sized
-array costs ~5-12 ms for n≈66k (scripts/tpu_probe14.py) — while the same f32
-op is microseconds.  The constrained endgame needs ~1e-14-relative constraint
-*values* but only f32-accurate Jacobians, so the hot path computes values in
-double-f32: each number is an unevaluated sum ``hi + lo`` of two f32s
-(~2⁻⁴⁸ ≈ 3.6e-15 unit roundoff), using only error-free transformations
-(Knuth two-sum, Dekker split two-product) — pure elementwise VPU ops that XLA
-fuses.  This replaces the reference's reliance on hardware f64 throughout
-(reference solvers.py runs numpy f64 end-to-end).
+Used when a system is stored in float32: the constrained endgame needs
+~1e-14-relative constraint *values* but only f32-accurate Jacobians, so the
+certificate computes values in double-f32: each number is an unevaluated sum
+``hi + lo`` of two f32s (~2⁻⁴⁸ ≈ 3.6e-15 unit roundoff), using only
+error-free transformations (Knuth two-sum, Dekker split two-product) — pure
+elementwise ops that XLA fuses, with no n-sized f64 arrays.  float64 systems
+do not use this module (the reference runs numpy f64 end-to-end).
 
 Classic references: Dekker (1971), Knuth TAOCP vol. 2, Hida–Li–Bailey's QD.
-No FMA is assumed (XLA exposes none portably): two_prod uses Dekker splitting.
+No FMA is assumed (XLA exposes none portably): two_prod uses Dekker
+splitting, which is exact only if the backend does not contract ``a·b − p``
+into a fused multiply-add; ``tests/test_dd.py`` and ``chip_smoke.py`` check
+the identities on the backend they run on.
 """
 
 from __future__ import annotations
@@ -197,7 +198,7 @@ def combine_f32(coeffs_y, Z) -> DD:
 
     The Krylov basis Z is stored in f32 (exact values); the f64 coefficients
     are split exactly.  k sequential dd accumulations of elementwise
-    two-products — O(k·n) VPU work, no f64 array ops.
+    two-products — O(k·n) elementwise work, no f64 array ops.
     """
     k = Z.shape[0]
     y_hi = coeffs_y.astype(jnp.float32)
@@ -213,8 +214,8 @@ def combine_f32(coeffs_y, Z) -> DD:
 def spmv_dia(data: DD, offsets, wrap: bool, x: DD) -> DD:
     """DIA SpMV in dd: y[i] = Σ_d A[d,i] · x[i + off_d] (rolled reads).
 
-    Mirrors ops/sparse.py::dia_spmv's roll-chain strategy (fast on TPU;
-    unaligned dynamic slices are ~20× slower) with dd accumulation.
+    Mirrors ops/sparse.py::dia_spmv's roll-chain strategy with dd
+    accumulation.
     """
     from .sparse import _shift
 

@@ -1,18 +1,18 @@
-"""TPU-native sparse matrix formats.
+"""Device sparse matrix formats.
 
 The reference keeps everything in scipy CSR and leans on scipy's C SpMV
-(reference ``solvers.py:95,191,370``).  CSR row-pointer indirection maps badly
-onto the TPU's vector/matrix units, so this module provides formats chosen for
-the hardware instead:
+(reference ``solvers.py:95,191,370``).  CSR row-pointer indirection becomes
+gathers and segment sums under XLA, so this module provides formats whose
+SpMV is regular, fusible array work instead:
 
 * ``DIA`` — diagonal storage, optionally periodic (wrapping).  FEM stencil
   matrices on structured meshes (all four reference problems) have a small,
   fixed set of nonzero diagonals; SpMV becomes a handful of elementwise
-  multiply-adds over shifted copies of ``x``: pure VPU work, no gather, and it
-  saturates HBM bandwidth.  This is the fast path.
+  multiply-adds over shifted copies of ``x``: no gather, one fused
+  bandwidth-bound pass.  This is the fast path.
 * ``ELL`` — fixed-width padded rows (cols + vals).  General fallback for any
   sparsity pattern; SpMV is a gather + row reduction, which XLA vectorises.
-* ``BSR`` — dense blocks at block-sparse positions, for MXU-driven SpMM.
+* ``BSR`` — dense blocks at block-sparse positions, for batched dense SpMM.
 
 All formats are registered pytrees with static structure (shape, offsets,
 row width), so they can be closed over or passed through ``jit`` / ``scan`` /
@@ -66,13 +66,8 @@ class DIA:
     offsets: Tuple[int, ...]  # static
     shape: Tuple[int, int]  # static
     wrap: bool  # static
-    # SpMV engine: 'auto' picks the Pallas kernel on TPU backends (size/dtype
-    # gated, see ``_pallas_eligible``), 'xla' forces the roll chain (used for
-    # GSPMD row-sharded operators, where pallas_call would block partitioning),
-    # 'pallas' forces the kernel (tests/benchmarks).
-    engine: str = "auto"  # static
 
-    _static = ("offsets", "shape", "wrap", "engine")
+    _static = ("offsets", "shape", "wrap")
 
     @property
     def nnz(self) -> int:
@@ -115,9 +110,9 @@ class ELL:
 
     Each row has exactly ``row_width`` (cols, vals) slots; padding entries
     point at column 0 with value 0, so no masking is needed in the kernel.
-    The (r, n) layout puts the large row dimension minor-most: a (n, r)
-    layout with narrow r is tile-padded r→128 on TPU — a 32× memory blow-up
-    for the AMG prolongators (r=4) that OOM'd heat M=2048 at compile.
+    The (r, n) layout puts the large row dimension minor-most, so each slot
+    is one contiguous length-n vector and a narrow r (the AMG prolongators
+    have r=4) never becomes a padded minor dimension.
     """
 
     cols: jnp.ndarray  # (r, n) int32
@@ -161,8 +156,8 @@ class BSR:
     ``blocks[p]`` is the dense block at block-row ``block_rows[p]``, block-col
     ``block_cols[p]``.  Block positions are static (baked into the jitted
     program) because FEM sparsity is fixed for a given mesh; only values are
-    traced.  SpMM against a tall-dense right-hand side runs each block on the
-    MXU.
+    traced.  SpMM against a tall-dense right-hand side runs each block as a
+    small dense matrix product.
     """
 
     blocks: jnp.ndarray  # (p, bs, bs)
@@ -222,44 +217,9 @@ def _shift(x: jnp.ndarray, off: int, wrap: bool) -> jnp.ndarray:
     return jnp.where(valid, rolled, 0)
 
 
-# Pallas dispatch gates: below this row count the kernel's padding/halo set-up
-# outweighs the traffic saving; above it the kernel's nnz+~3n HBM traffic beats
-# the roll chain's per-diagonal re-reads.
-PALLAS_MIN_N = 65536
-
-
-def _pallas_eligible(A: "DIA", x) -> bool:
-    if A.engine == "xla":
-        return False
-    n = A.shape[0]
-    span = max(max(A.offsets), 0) - min(min(A.offsets), 0)
-    structurally_ok = (
-        x.ndim == 1
-        and jnp.result_type(A.data, x) == jnp.float32
-        and span < n  # halo table must fit beside the x tiles
-    )
-    if A.engine == "pallas":
-        return structurally_ok
-    # 'auto': only on a real TPU backend, and only when big enough to win
-    from .. import config
-
-    return structurally_ok and n >= PALLAS_MIN_N and config.is_tpu()
-
-
 def dia_spmv(A: DIA, x: jnp.ndarray) -> jnp.ndarray:
-    """DIA SpMV: Pallas tile-aligned kernel on TPU (nnz+O(n) HBM traffic),
-    XLA roll chain elsewhere.
-
-    jnp.roll lowers to efficient rotations on TPU (measured ~99 GNNZ/s on
-    v5e for the 7-diagonal heat operator); lane-unaligned dynamic slices are
-    ~20× slower there, so the padded-window formulation is deliberately NOT
-    used on the XLA path (the Pallas kernel owns that strategy)."""
-    if _pallas_eligible(A, x):
-        from .. import config
-        from .pallas_spmv import dia_spmv_pallas
-
-        # interpret mode lets engine='pallas' run (tests) on CPU backends
-        return dia_spmv_pallas(A, x, interpret=not config.is_tpu())
+    """DIA SpMV as a chain of shifted multiply-adds, which XLA fuses into one
+    elementwise pass over ``x`` and the diagonals (nnz + 2n element reads)."""
     y = jnp.zeros(A.shape[0], jnp.result_type(A.data, x))
     for d, off in enumerate(A.offsets):
         y = y + A.data[d] * _shift(x, off, A.wrap)

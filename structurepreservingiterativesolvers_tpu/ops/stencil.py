@@ -1,4 +1,4 @@
-"""Constant-stencil (matrix-free) operator: the TPU-native fast path for
+"""Constant-stencil (matrix-free) operator: the fast path for
 structured-grid FEM matrices.
 
 Every reference problem assembles its operator on a *uniform* structured mesh
@@ -7,26 +7,19 @@ lkdvRK/lkdvRK.py:113-124), so away from the boundary every row of ``A`` is
 the same stencil: ``A = C + E`` where ``C`` has one constant per diagonal and
 ``E`` touches only O(boundary) rows.  The reference pays scipy-CSR traffic
 (indices + values per nonzero) for what is really a convolution; here the
-SpMV reads **no matrix data at all** on the constant part — HBM traffic
+SpMV reads **no matrix data at all** on the constant part — memory traffic
 drops from ``nnz + 2n`` elements (the DIA formulation) to ``~2n`` plus an
 O(boundary) correction, the dominant cost of every Krylov iteration
-(reference solvers.py:95,191,370).  Measured reality on v5e (heat M=1024,
-scripts/tpu_probe25.py): the shifted reads are VPU-rotation-bound rather
-than HBM-bound, so the realised win over DIA is ~11% (81.6 vs 91 µs), not
-the 4.5× the traffic ratio alone would suggest; the matrix-data traffic it
-removes still compounds with problem size and frees HBM for the operands
-that do stream (Krylov basis, preconditioner windows).
+(reference solvers.py:95,191,370).
 
-The correction is the part that decides whether the win is real.  A
-row-index gather/scatter formulation measures **3.3× slower than plain DIA**
-on a v5e (scripts/tpu_probe24.py: 0.30 ms vs 0.091 ms at heat M=1024 —
-TPU scatter over 4k rows costs far more than the 7n matrix reads it saves).
-So corrections here are restricted to the shape they actually take on a
+The correction must not undo that saving.  A row-index gather/scatter over
+the corrected rows costs far more than the matrix reads it removes, so
+corrections here are restricted to the shape they actually take on a
 tensor-product grid: the corrected rows are the **boundary strips** of the
 (R, C) grid view — first/last grid row (contiguous runs of the flat vector)
 and first/last grid column (single columns of the 2-D view).  Applying them
-is 4 static slices + 4 ``dynamic_update_slice`` ops touching O(R+C)
-elements: no gather, no scatter, no full-vector passes.
+is a few static slices and padded adds touching O(R+C) elements: no gather,
+no scatter, no extra full-vector passes.
 
 ``maybe_stencil`` performs the host-side decomposition at assembly time
 (exact on uncorrected rows, ulp-level on the O(boundary) corrected rows —
@@ -69,9 +62,8 @@ class Stencil:
     shape: Tuple[int, int]  # static
     wrap: bool  # static
     grid_c: int = 0  # static: grid row length C (0 = no correction)
-    engine: str = "auto"  # static: 'auto' | 'xla' | 'pallas'
 
-    _static = ("offsets", "shape", "wrap", "grid_c", "engine")
+    _static = ("offsets", "shape", "wrap", "grid_c")
 
     # -- DIA-compatible surface -------------------------------------------
     @property
@@ -146,7 +138,7 @@ def _strip_cover(resid: np.ndarray, n: int, C: int):
     return top, bot, left, right
 
 
-def maybe_stencil(A, max_corr_frac: float = 0.125):
+def maybe_stencil(A):
     """Decompose a DIA matrix into constant stencil + boundary-strip residual.
 
     The constant for each diagonal is its *mode* over in-range rows.  The
@@ -154,10 +146,8 @@ def maybe_stencil(A, max_corr_frac: float = 0.125):
     ``C`` alone reproduces the row); on corrected rows ``C·x + E·x`` differs
     from ``A·x`` only by one extra rounding of the split product (ulp-level).
     Returns ``A`` unchanged when the corrected rows are not the boundary
-    strips of a tensor-product grid (a row-index gather/scatter correction
-    measures *slower* than plain DIA on TPU — scripts/tpu_probe24.py), when
-    the corrected fraction exceeds ``max_corr_frac``, or when ``A`` is not
-    a DIA.
+    strips of a tensor-product grid (see the module docstring), or when
+    ``A`` is not a DIA.
     """
     import os
 
@@ -188,11 +178,9 @@ def maybe_stencil(A, max_corr_frac: float = 0.125):
             top_vals=None, bot_vals=None, left_vals=None, right_vals=None,
             offsets=A.offsets, shape=A.shape, wrap=A.wrap, grid_c=0,
         )
-    # max_corr_frac guarded the (removed) gather-correction path; the strip
-    # correction below costs O(R + C) whatever the corrected fraction, so the
-    # only gates left are wrap (periodic grids have no boundary strips) and
-    # strip coverage itself.
-    del max_corr_frac
+    # the strip correction costs O(R + C) whatever the corrected fraction,
+    # so the only gates are wrap (periodic grids have no boundary strips)
+    # and strip coverage itself
     if A.wrap:
         return A
     # candidate grid row lengths: near the large offsets, and √n
@@ -247,9 +235,7 @@ def _apply_strips(S: Stencil, x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
 
     All reads are static slices of ``x`` (or single columns of its (R, C)
     view) and the writes are padded-strip adds that XLA fuses into the
-    surrounding elementwise graph (measured marginally faster than a
-    dynamic_update_slice chain: 81.6 vs 84.0 µs full SpMV at heat M=1024,
-    scripts/tpu_probe25.py).  No gather, no scatter."""
+    surrounding elementwise graph.  No gather, no scatter."""
     n = S.shape[0]
     C = S.grid_c
     R = n // C
@@ -264,11 +250,11 @@ def _apply_strips(S: Stencil, x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
         bot = bb if bot is None else bot + bb
 
     X = x.reshape(R, C)
-    # The strided column reads of X are the strips cost floor (~10-20 µs per
-    # distinct column on v5e — stride-4C-byte DMAs).  The needed columns
-    # cluster into contiguous runs near 0 and C-1 ({0,1} and {C-2,C-1} for a
-    # 9-point stencil), so slice each run ONCE and index columns out of the
-    # resident slab: 2 DMAs instead of 4-6.
+    # The strided column reads of X are the strips' cost floor (one strided
+    # read per distinct column).  The needed columns cluster into contiguous
+    # runs near 0 and C-1 ({0,1} and {C-2,C-1} for a 9-point stencil), so
+    # slice each run ONCE and index columns out of the slab: 2 strided reads
+    # instead of 4-6.
     rems = sorted({divmod(base + off, C)[1] for off in offs for base in (0, C - 1)})
     cols = {}
     run_start = prev = rems[0]
@@ -301,34 +287,10 @@ def _apply_strips(S: Stencil, x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     return (y.reshape(R, C) + corr).reshape(n)
 
 
-def _pallas_ok(S: Stencil, x) -> bool:
-    """'auto' deliberately picks the XLA roll chain: XLA's rotate is faster
-    than the kernel's pltpu.roll formulation AND it fuses the strip pads
-    into the same pass, while a pallas_call output forces a separate
-    correction pass (measured: xla 81.6 µs vs pallas 92 µs full SpMV at
-    heat M=1024 — scripts/tpu_probe25.py).  engine='pallas' forces the
-    kernel (tests, experiments)."""
-    if S.engine != "pallas":
-        return False
-    n = S.shape[0]
-    span = max(max(S.offsets), 0) - min(min(S.offsets), 0)
-    return (
-        x.ndim == 1
-        and jnp.result_type(S.const, x) == jnp.float32
-        and span < n
-    )
-
-
 def stencil_spmv(S: Stencil, x: jnp.ndarray) -> jnp.ndarray:
-    if _pallas_ok(S, x):
-        from .. import config
-        from .pallas_spmv import stencil_spmv_pallas
-
-        y = stencil_spmv_pallas(S, x, interpret=not config.is_tpu())
-    else:
-        y = jnp.zeros(S.shape[0], jnp.result_type(S.const, x))
-        for d, off in enumerate(S.offsets):
-            y = y + S.const[d] * _shift(x, off, S.wrap)
+    y = jnp.zeros(S.shape[0], jnp.result_type(S.const, x))
+    for d, off in enumerate(S.offsets):
+        y = y + S.const[d] * _shift(x, off, S.wrap)
     if S.grid_c:
         y = _apply_strips(S, x, y)
     return y
@@ -336,7 +298,7 @@ def stencil_spmv(S: Stencil, x: jnp.ndarray) -> jnp.ndarray:
 
 def stencil_spmm(S: Stencil, X: jnp.ndarray) -> jnp.ndarray:
     """SpMM falls back to the exact explicit operator: the matrix-free win
-    is per-SpMV HBM traffic, and SpMM consumers (constraint catch-up,
+    is per-SpMV memory traffic, and SpMM consumers (constraint catch-up,
     oracles) read the matrix data anyway."""
     from .sparse import dia_spmm
 

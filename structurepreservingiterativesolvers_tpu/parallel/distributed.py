@@ -6,16 +6,18 @@ parallelism is the process-pool sweep, reference
 lkdvRK/ErrorGenerator.py:13-54).  Here multi-host data distribution is
 first-class: each host process calls :func:`init_distributed`, builds the
 same global mesh, and runs the *same* jitted solver — GSPMD places psum
-reductions and halo permutes on ICI within a host and DCN across hosts.
+reductions and halo permutes on the device interconnect within a host
+(NVLink) and on the network across hosts.  On one host, a single process
+drives all its GPUs; several processes are for several hosts.
 
 Device ordering matters: :func:`global_mesh` orders devices host-major, so a
 1-D row sharding keeps consecutive row blocks on the same host and the ring
-halo exchange of the DIA SpMV crosses DCN only at the ``num_hosts`` host
-boundaries per sweep (everything else rides ICI).  :func:`host_chip_mesh`
-exposes the explicit 2-D (hosts × chips) factorisation for layouts that want
-to reduce hierarchically.
+halo exchange of the DIA SpMV crosses the network only at the ``num_hosts``
+host boundaries per sweep (everything else stays within a host).
+:func:`host_chip_mesh` exposes the explicit 2-D (hosts × chips)
+factorisation for layouts that want to reduce hierarchically.
 
-Works identically on real pods and on multi-process CPU validation runs
+Works identically on real clusters and on multi-process CPU validation runs
 (``--xla_force_host_platform_device_count`` per process + gloo collectives),
 which is how ``tests/test_distributed.py`` exercises it.
 """
@@ -42,7 +44,7 @@ def init_distributed(
 
     Arguments fall back to the ``SPIS_COORDINATOR`` / ``SPIS_NUM_PROCESSES``
     / ``SPIS_PROCESS_ID`` environment variables, and finally to JAX's own
-    cluster auto-detection (TPU pod metadata, Slurm, Open MPI).  Returns
+    cluster auto-detection (Slurm, Open MPI).  Returns
     ``(process_id, num_processes)``.  Idempotent: calling again after a
     successful init is a no-op.
     """
@@ -73,7 +75,7 @@ def _devices_host_major():
 
 def global_mesh(axis: str = ROWS):
     """1-D mesh over ALL global devices, host-major: consecutive shards stay
-    on one host, so ring halos cross DCN only at host boundaries."""
+    on one host, so ring halos cross the network only at host boundaries."""
     import jax
     from jax.sharding import Mesh
 
@@ -81,7 +83,7 @@ def global_mesh(axis: str = ROWS):
 
 
 def host_chip_mesh():
-    """2-D (hosts, chips) mesh — the DCN×ICI factorisation."""
+    """2-D (hosts, chips) mesh — the network × interconnect factorisation."""
     import jax
     from jax.sharding import Mesh
 
@@ -122,8 +124,14 @@ def spawn_local(num_processes: int, argv: list, env_extra: Optional[dict] = None
         # CPU validation: each process contributes exactly
         # ``devices_per_process`` virtual devices — any inherited
         # xla_force_host_platform_device_count (e.g. from the test
-        # conftest) is stripped so the global device count is deterministic
-        env.setdefault("JAX_PLATFORMS", "cpu")
+        # conftest) is stripped so the global device count is deterministic.
+        # Forced, not defaulted: children inheriting an accelerator platform
+        # would each try to reserve the same device.
+        env["JAX_PLATFORMS"] = "cpu"
+        # a multi-process CPU job hangs in its first cross-process
+        # collective when its processes load the solver from the persistent
+        # compile cache, so the validation workers always compile afresh
+        env["JAX_ENABLE_COMPILATION_CACHE"] = "false"
         import re
 
         flags = re.sub(

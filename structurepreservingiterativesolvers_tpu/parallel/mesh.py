@@ -6,7 +6,8 @@ build a 1-D ``Mesh`` over the available chips, place the row dimension of
 every operator and vector on it (``NamedSharding``), and run the *same*
 jitted solver — XLA/GSPMD inserts the collectives (psum for MGS inner
 products and norms, collective-permute for the periodic diagonal shifts of
-DIA SpMV) on ICI.  The tiny KKT endgame data (t1, T2, H, R) stays replicated.
+DIA SpMV) on the device interconnect (NVLink between the GPUs of one host).
+The tiny KKT endgame data (t1, T2, H, R) stays replicated.
 """
 
 from __future__ import annotations
@@ -40,17 +41,13 @@ def shard_matrix(A, mesh: Mesh):
     """Place a sparse operator's row dimension on the mesh."""
     from ..ops.stencil import as_dia
 
-    # Stencil → shard its explicit DIA view: the residual-row gather/scatter
-    # is not GSPMD-friendly, and the sharded roll chain is the designed
-    # multi-chip SpMV (engine='xla' below)
+    # Stencil → shard its explicit DIA view: the boundary-strip correction
+    # reshapes to the (R, C) grid, which does not follow a row sharding,
+    # while GSPMD partitions the DIA roll chain directly
     A = as_dia(A)
     if isinstance(A, DIA):
         sh = NamedSharding(mesh, P(None, ROWS))
-        # engine='xla': GSPMD partitions the roll chain; a pallas_call here
-        # would force a gather of the full operand onto one device
-        return dataclasses.replace(
-            A, data=jax.device_put(A.data, sh), engine="xla"
-        )
+        return dataclasses.replace(A, data=jax.device_put(A.data, sh))
     if isinstance(A, ELL):
         # transposed (r, n) layout: the row dimension is axis 1
         sh = NamedSharding(mesh, P(None, ROWS))
@@ -100,19 +97,20 @@ def shard_preconditioner(pre, mesh: Mesh, replicate_below: int = 32768):
     reference heat/TimedSolve.py:30-31 — and the distributed path must
     cover them, not just the bare operator).
 
-    * ``AMG``: levels with ≥ ``replicate_below`` rows are row-sharded — the
+    * ``AMG``: levels with ≥ ``replicate_below`` rows, and a row count the
+      mesh divides evenly, are row-sharded — the
       DIA smoothing operator, ``dinv`` and the structured Box transfer
       smoothers all live on the same grid-row band partition, so Jacobi
       sweeps and the repeat/pad/box-sum transfers stay shard-local up to
       stencil halos (GSPMD inserts the collective-permutes).  Levels below
-      the threshold and the dense coarsest inverse REPLICATE: their whole
-      operand fits in one core's VMEM and any collective there would be
-      latency-bound.
+      the threshold and the dense coarsest inverse REPLICATE: they are small
+      and any collective there would be latency-bound.  So does a level
+      whose row count the mesh does not divide (box aggregation gives
+      ⌈C/3⌉² rows: heat M=2047 has a 683² level); GSPMD reshards at the
+      transfers around it.
     * ``Jacobi``: ``dinv`` row-sharded.
     * polynomial preconditioners (``Chebyshev``/``Neumann``/
-      ``SkewNormalChebyshev``): polynomial-in-A — shard ``A``.  A fused
-      pallas window (``datawin``) is dropped to the chained-SpMV form:
-      ``pallas_call`` would block GSPMD partitioning.
+      ``SkewNormalChebyshev``): polynomial-in-A — shard ``A``.
     * anything else: replicated as-is.
     """
     from ..precond.amg import AMG, BoxProlong, BoxRestrict, _Level
@@ -131,7 +129,9 @@ def shard_preconditioner(pre, mesh: Mesh, replicate_below: int = 32768):
 
         levels = []
         for L in pre.levels:
-            if L.A.shape[0] >= replicate_below and L.P is not None:
+            n = L.A.shape[0]
+            if (n >= replicate_below and n % mesh.devices.size == 0
+                    and L.P is not None):
                 levels.append(_Level(
                     A=shard_matrix(L.A, mesh),
                     P=shard_transfer(L.P),
@@ -149,15 +149,12 @@ def shard_preconditioner(pre, mesh: Mesh, replicate_below: int = 32768):
         )
     if isinstance(pre, Jacobi):
         return dataclasses.replace(pre, dinv=shard_vector(pre.dinv, mesh))
-    if isinstance(pre, Chebyshev):
-        return dataclasses.replace(
-            pre, A=shard_matrix(pre.A, mesh), datawin=None)
+    if isinstance(pre, (Chebyshev, SkewNormalChebyshev)):
+        return dataclasses.replace(pre, A=shard_matrix(pre.A, mesh))
     if isinstance(pre, Neumann):
         return dataclasses.replace(
             pre, A=shard_matrix(pre.A, mesh),
-            dinv=shard_vector(pre.dinv, mesh), datawin=None, dinvwin=None)
-    if isinstance(pre, SkewNormalChebyshev):
-        return dataclasses.replace(pre, A=shard_matrix(pre.A, mesh))
+            dinv=shard_vector(pre.dinv, mesh))
     return jax.tree_util.tree_map(lambda a: replicated(a, mesh), pre)
 
 

@@ -1,6 +1,6 @@
 """Polynomial preconditioners (Chebyshev and Neumann).
 
-TPU-native replacements for the algorithmically sequential preconditioners
+Data-parallel replacements for the algorithmically sequential preconditioners
 the reference imports (SuperLU ILU triangular solves; PyAMG Ruge–Stüben,
 reference heat/TimedSolve.py:30-31): a fixed short sequence of SpMVs is
 perfectly jit-able, has no data-dependent control flow, and — because FGMRES
@@ -32,34 +32,19 @@ from .jacobi import diagonal
 @dataclasses.dataclass(frozen=True)
 class Chebyshev:
     """Chebyshev polynomial approximation of A⁻¹ on [lmin, lmax] applied via
-    the standard three-term recurrence (one SpMV per degree).
-
-    When ``datawin`` is present (built by ``chebyshev(..., fused=True)`` or
-    automatically on TPU), the whole degree-p recurrence runs as ONE
-    time-tiled Pallas kernel (``ops/pallas_poly.py``) — ~p× less HBM
-    traffic than p chained SpMVs."""
+    the standard three-term recurrence (one SpMV per degree)."""
 
     A: object
     lmin: float  # static
     lmax: float  # static
     degree: int  # static
-    datawin: object = None  # (grid_n, ndiag, Wb, 128) or None
-    block_rows: int = 65536  # static
-    interpret: bool = False  # static (CPU test path)
 
-    _static = ("lmin", "lmax", "degree", "block_rows", "interpret")
+    _static = ("lmin", "lmax", "degree")
 
     def __call__(self, v):
         theta = 0.5 * (self.lmax + self.lmin)
         delta = 0.5 * (self.lmax - self.lmin)
         sigma = theta / delta
-        if self.datawin is not None:
-            from ..ops.pallas_poly import cheb_apply_fused
-
-            return cheb_apply_fused(
-                self.datawin, self.A.offsets, self.A.wrap, v.shape[0],
-                self.degree, theta, delta, sigma, v,
-                block_rows=self.block_rows, interpret=self.interpret)
         rho = 1.0 / sigma
         x = v / theta
         r = v - self.A @ x
@@ -80,30 +65,16 @@ class Chebyshev:
 @dataclasses.dataclass(frozen=True)
 class Neumann:
     """Truncated Neumann series for (D⁻¹A) with damping ω:
-    p(A) = ω Σ_{i<degree} (I − ω D⁻¹A)^i D⁻¹.
-
-    With ``datawin``/``dinvwin`` present, the whole series runs as one
-    time-tiled Pallas kernel (see ``Chebyshev``)."""
+    p(A) = ω Σ_{i<degree} (I − ω D⁻¹A)^i D⁻¹."""
 
     A: object
     dinv: jnp.ndarray
     omega: float  # static
     degree: int  # static
-    datawin: object = None
-    dinvwin: object = None
-    block_rows: int = 65536  # static
-    interpret: bool = False  # static
 
-    _static = ("omega", "degree", "block_rows", "interpret")
+    _static = ("omega", "degree")
 
     def __call__(self, v):
-        if self.datawin is not None:
-            from ..ops.pallas_poly import neumann_apply_fused
-
-            return neumann_apply_fused(
-                self.datawin, self.dinvwin, self.A.offsets, self.A.wrap,
-                v.shape[0], self.degree, self.omega, v,
-                block_rows=self.block_rows, interpret=self.interpret)
         z = self.omega * (self.dinv * v)
         acc = z
         for _ in range(self.degree - 1):
@@ -125,7 +96,7 @@ class NeumannComposite:
     — the polynomial-of-preconditioned-operator upgrade that closes the
     iteration-count gap to the reference's SuperLU ILU
     (lkdvRK/Evolve.py:51-52): each extra degree costs one SpMV + one inner
-    apply (batched MXU work for block/RAS inners), no triangular solves.
+    apply (batched dense work for block/RAS inners), no triangular solves.
     With a RAS inner this reaches ILU-level preconditioning quality on the
     lkdvRK stage systems (see docs/ILU_PARITY.md)."""
 
@@ -160,7 +131,7 @@ class SkewNormalChebyshev:
     with K skew(-adjoint in some inner product) — the swe midpoint operator
     A = I/dt − S/2 (models/swe.py; reference swe/swe.py:61-66 builds the
     same Crank–Nicolson form, and swe/TimedSolve.py:23-24 pairs it with
-    SuperLU spilu, which has no TPU-native analogue).
+    SuperLU spilu, whose triangular solves are sequential).
 
     Identity: A·(2aI − A) = a²I − K² =: N is SPD in the skewness inner
     product with spectrum ⊂ [a², a² + ρ(K)²] — a SHORT interval whose
@@ -268,45 +239,13 @@ def power_bounds(A, iters: int = 30, seed: int = 0):
     return 0.05 * lmax, 1.1 * lmax
 
 
-def _fuse_block_rows(A, degree: int, fused: Optional[bool], block_rows: int):
-    """Fused-kernel gate: returns the VMEM-fitted block size (0 = unfused).
-    Explicit ``fused`` wins; auto requires a TPU backend, a DIA operator in
-    f32, degree ≥ 2 (else nothing to fuse), a halo that stays a small
-    fraction of the tile, and the working set inside scoped VMEM."""
-    from ..ops.pallas_poly import fit_block_rows
-    from ..ops.sparse import DIA
-    from ..ops.stencil import Stencil
-
-    if fused is False:
-        return 0
-    # Stencil proxies .data/.offsets/.wrap, so the fused windowed kernel
-    # builds identically from either form
-    if not isinstance(A, (DIA, Stencil)) or A.data.dtype != jnp.float32 \
-            or degree < 2:
-        return 0
-    br = fit_block_rows(A.shape[0], A.offsets, degree, block_rows)
-    # halo per side = degree·max(lo,hi)+128 (ops/pallas_poly._plan); the two
-    # halos must stay within one tile's worth of overlap
-    span = max(max(A.offsets), 0, -min(min(A.offsets), 0))
-    if br == 0 or 2 * (degree * span + 128) > br:
-        return 0
-    if fused:
-        return br
-    from .. import config
-
-    return br if (A.shape[0] >= 262144 and config.is_tpu()) else 0
-
-
 def chebyshev(A, lmin: Optional[float] = None, lmax: Optional[float] = None,
-              degree: int = 8, scale_by_diag: bool = True,
-              fused: Optional[bool] = None, block_rows: int = 131072,
-              interpret: bool = False):
+              degree: int = 8):
     """Build a Chebyshev preconditioner; bounds estimated if not given.
 
     For diagonally-scaled operation, compose with Jacobi outside; here we
     precondition A itself using estimated bounds of A's spectrum (via the
-    Rayleigh quotient growth of plain power iteration).  ``fused=None``
-    auto-selects the time-tiled one-pass Pallas apply on TPU backends."""
+    Rayleigh quotient growth of plain power iteration)."""
     if lmin is None or lmax is None:
         n = A.shape[0]
         rng = np.random.default_rng(0)
@@ -319,31 +258,11 @@ def chebyshev(A, lmin: Optional[float] = None, lmax: Optional[float] = None,
             v = w / est
         lmax = lmax or 1.1 * est
         lmin = lmin or 0.03 * est
-    datawin = None
-    br = _fuse_block_rows(A, degree, fused, block_rows)
-    if br:
-        from ..ops.pallas_poly import window_data
-
-        datawin = window_data(A, int(degree), br)
-        block_rows = br
     return Chebyshev(A=A, lmin=float(lmin), lmax=float(lmax),
-                     degree=int(degree), datawin=datawin,
-                     block_rows=int(block_rows), interpret=bool(interpret))
+                     degree=int(degree))
 
 
-def neumann(A, degree: int = 4, omega: float = 0.8,
-            fused: Optional[bool] = None, block_rows: int = 131072,
-            interpret: bool = False):
+def neumann(A, degree: int = 4, omega: float = 0.8):
     d = diagonal(A)
     dinv = 1.0 / jnp.where(d == 0, 1.0, d)
-    datawin = dinvwin = None
-    br = _fuse_block_rows(A, degree, fused, block_rows)
-    if br:
-        from ..ops.pallas_poly import window_data, window_vector
-
-        datawin = window_data(A, int(degree), br)
-        dinvwin = window_vector(dinv, A.offsets, A.wrap, int(degree), br)
-        block_rows = br
-    return Neumann(A=A, dinv=dinv, omega=float(omega), degree=int(degree),
-                   datawin=datawin, dinvwin=dinvwin,
-                   block_rows=int(block_rows), interpret=bool(interpret))
+    return Neumann(A=A, dinv=dinv, omega=float(omega), degree=int(degree))

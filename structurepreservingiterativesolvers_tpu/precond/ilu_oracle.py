@@ -3,8 +3,7 @@
 The reference preconditions lkdvRK and swe with SuperLU's incomplete LU
 (``scipy.sparse.linalg.spilu(A, drop_tol=1e-4, fill_factor=10)`` —
 reference lkdvRK/Evolve.py:51-52, swe/TimedSolve.py:23-24).  Sparse
-triangular solves are inherently sequential and do not map to the TPU, so
-the production path uses block-Jacobi / RAS / polynomial preconditioners
+triangular solves are inherently sequential, so the production path uses block-Jacobi / RAS / polynomial preconditioners
 (``jacobi.py``, ``chebyshev.py``) instead.
 
 This module exists to *prove* that substitution is quality-equivalent: it
@@ -31,7 +30,7 @@ from ..ops.sparse import _register
 @_register
 @dataclasses.dataclass(frozen=True)
 class DenseApply:
-    """Dense preconditioner apply: v ↦ Minv @ v (one MXU matvec)."""
+    """Dense preconditioner apply: v ↦ Minv @ v (one dense matvec)."""
 
     Minv: jnp.ndarray
 

@@ -1,11 +1,10 @@
 """Point- and block-Jacobi preconditioners.
 
-TPU-native stand-ins for the reference's SuperLU ILU factors
+Data-parallel stand-ins for the reference's SuperLU ILU factors
 (reference lkdvRK/Evolve.py:51-52, swe/TimedSolve.py:23-24): triangular
-solves are inherently sequential and do not map to the TPU, so the
-iteration-quality role is filled by block-Jacobi with dense per-block
-inverses — the block solve is a batched matmul on the MXU — and by the
-polynomial preconditioners in ``chebyshev.py``.
+solves are inherently sequential, so the iteration-quality role is filled by
+block-Jacobi with dense per-block inverses — the block solve is one batched
+matmul — and by the polynomial preconditioners in ``chebyshev.py``.
 """
 
 from __future__ import annotations
@@ -64,7 +63,7 @@ class BlockJacobi:
     """Dense-inverse block-Jacobi: y[idx_p] = inv_p @ v[idx_p].
 
     Every dof belongs to exactly one block; blocks are uniform size, so the
-    apply is one gather + one batched (MXU) matmul + one scatter.
+    apply is one gather + one batched matmul + one scatter.
     """
 
     idx: jnp.ndarray  # (nb, bs) int32
@@ -116,7 +115,7 @@ class RAS:
     """Restricted additive Schwarz: overlapping dense block solves, but each
     dof takes its value only from the block that owns it (interior mask) —
     the standard overlap upgrade of block-Jacobi, still one gather + one
-    batched MXU matmul + one scatter."""
+    batched matmul + one scatter."""
 
     idx: jnp.ndarray  # (nb, bs) int32 — overlapping blocks
     inv: jnp.ndarray  # (nb, bs, bs)

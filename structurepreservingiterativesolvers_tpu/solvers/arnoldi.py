@@ -59,8 +59,9 @@ def init_state(r0: jnp.ndarray, beta: jnp.ndarray, k: int) -> ArnoldiState:
 def _mgs(Q: jnp.ndarray, w: jnp.ndarray, j: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Modified Gram-Schmidt of w against rows Q[0..j]; returns (w⊥, h column).
 
-    Sequential (latency-bound on TPU) — kept for strict reference parity
-    (reference solvers.py:97-99); the default is CGS2 below."""
+    Sequential (j dependent dot/axpy pairs, latency-bound on an
+    accelerator) — kept for strict reference parity (reference
+    solvers.py:97-99); the default is CGS2 below."""
     k1 = Q.shape[0]
     h = jnp.zeros(k1, w.dtype)
 
@@ -73,32 +74,19 @@ def _mgs(Q: jnp.ndarray, w: jnp.ndarray, j: jnp.ndarray) -> Tuple[jnp.ndarray, j
     return lax.fori_loop(0, j + 1, body, (w, h))
 
 
-def _cgs2(Q: jnp.ndarray, w: jnp.ndarray, j: jnp.ndarray,
-          fused: str = "auto") -> Tuple[jnp.ndarray, jnp.ndarray]:
+def _cgs2(Q: jnp.ndarray, w: jnp.ndarray, j: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Classical Gram-Schmidt with reorthogonalisation (CGS2).
 
     Rows of Q beyond the active prefix are zero, so the two batched
     (k+1,n)-matvec passes orthogonalise exactly against Q[0..j] with no
-    masking — two MXU/VPU ops instead of j sequential dot/axpy pairs.
-    CGS2's orthogonality loss is O(eps), matching MGS for these basis sizes
-    (the TPU-friendly substitute called out in SURVEY §7).
-
-    On TPU the middle two of the four basis sweeps (update-1 + matvec-2)
-    run as one fused Pallas pass over Q (``ops/pallas_ortho.py``) — same
-    arithmetic, 25% less orthogonalisation traffic.  ``fused='xla'``
-    forces the plain form (required under GSPMD sharding, where a
-    pallas_call would gather the basis onto one device)."""
-    from ..ops.pallas_ortho import fused_eligible, fused_update_matvec
-
+    masking — four bandwidth-bound sweeps over Q instead of j sequential
+    dot/axpy pairs.  CGS2's orthogonality loss is O(eps), matching MGS for
+    these basis sizes (the data-parallel substitute called out in SURVEY §7).
+    Under GSPMD row sharding the products become local partial sums plus one
+    all-reduce each."""
     h1 = Q @ w
-    if fused != "xla" and fused_eligible(Q, w):
-        from .. import config
-
-        w1, h2 = fused_update_matvec(Q, w, h1,
-                                     interpret=not config.is_tpu())
-    else:
-        w1 = w - h1 @ Q
-        h2 = Q @ w1
+    w1 = w - h1 @ Q
+    h2 = Q @ w1
     w2 = w1 - h2 @ Q
     return w2, h1 + h2
 
@@ -116,12 +104,9 @@ def arnoldi_step(
     """
     z = prefunc(st.Q[j])
     w = A @ z
-    # ortho: 'cgs2' (fused pallas pass on TPU), 'cgs2_xla' (plain form —
-    # REQUIRED for GSPMD-sharded operands), 'mgs' (reference parity)
+    # ortho: 'cgs2' (default) or 'mgs' (reference parity)
     if ortho == "cgs2":
         w, hcol = _cgs2(st.Q, w, j)
-    elif ortho == "cgs2_xla":
-        w, hcol = _cgs2(st.Q, w, j, fused="xla")
     else:
         w, hcol = _mgs(st.Q, w, j)
     hlast = jnp.linalg.norm(w)
@@ -160,7 +145,7 @@ def _givens_update(st: ArnoldiState, hcol: jnp.ndarray, j: jnp.ndarray) -> Arnol
     # column j to R extends R⁻¹ by one column at the cost of one masked
     # multiply+reduce — so coefficient solves (lsq_coeffs) are a single
     # matvec instead of a k-step sequential back-substitution per iteration
-    # (the sequential loop's tiny dependent ops dominate on TPU).
+    # (a sequential loop of tiny dependent ops is latency-bound on device).
     idx = jnp.arange(k)
     tiny = jnp.finfo(st.R.dtype).tiny
     rjj = jnp.where(denom == 0, tiny, denom)

@@ -56,14 +56,13 @@ def _gj_eliminate(K: jnp.ndarray, aug: jnp.ndarray):
     """Gauss–Jordan elimination with partial pivoting over [K | aug], in pure
     dense jnp ops.
 
-    XLA:TPU implements LuDecomposition only for f32, but the KKT system must
-    be solved in f64 on f32 hardware (mixed mode) — this routine works in any
-    dtype.  TPU shaping: every row/column access goes through one-hot
-    matvecs/outer products on static shapes — a dynamic slice with a traced
-    index takes the unaligned slow path on TPU (~20×, see ops/pallas_spmv.py
-    notes) and a fori body pays it every step.  Gauss–Jordan (eliminate the
-    pivot column from *all* other rows) removes the separate back-substitution
-    loop, halving the sequential depth to n steps.
+    Works in any dtype (the KKT system is solved in f64 also for f32
+    storage).  Every row/column access goes through one-hot matvecs/outer
+    products on static shapes instead of dynamic slices with a traced index.
+    Gauss–Jordan (eliminate the pivot column from *all* other rows) removes
+    the separate back-substitution loop, halving the sequential depth to n
+    steps.  Whether ``jnp.linalg.solve`` (a library LU) is as fast at k≈40
+    is an open question (ROADMAP, Design 4).
 
     Returns ``(M, P, diag)``: the eliminated [K | aug], the permutation
     one-hots (P[c] selects the pivot row of column c) and the pivot values.
@@ -76,9 +75,7 @@ def _gj_eliminate(K: jnp.ndarray, aug: jnp.ndarray):
     idx_aug = jnp.arange(w)
     tiny = jnp.finfo(dt).tiny
 
-    # all row/column selections are masked multiply+reduce on static shapes —
-    # dynamic slices take the unaligned TPU slow path, and tiny f64 matmuls
-    # are emulated (multi-pass) on f32 MXU hardware; VPU reductions are cheap
+    # all row/column selections are masked multiply+reduce on static shapes
     def step(col, carry):
         M, used, P = carry
         colmask = (idx_aug == col).astype(dt)           # one-hot column (w,)
@@ -116,8 +113,7 @@ def gj_inverse(K: jnp.ndarray) -> jnp.ndarray:
     (n one-hot elimination steps) as a single solve, so factoring ONCE and
     applying K⁻¹ as matvecs afterwards turns every further 'solve' into one
     cheap matmul.  This is what makes the modified-Newton KKT endgame
-    latency-viable on TPU (each GJ pass is ~1 ms of sequential latency;
-    a matvec is ~µs)."""
+    latency-viable: a GJ pass is n dependent steps, a matvec is one op."""
     n = K.shape[0]
     M, P, diag = _gj_eliminate(K, jnp.eye(n, dtype=K.dtype))
     # K⁻¹[c, :] = (transformed identity row at pivot p(c)) / pivval_c
@@ -138,11 +134,11 @@ def constrained_lsq(
     have_ws=None,  # traced bool — whether the warm starts are valid
     max_refacts: int = 4,
 ) -> KKTResult:
-    """Modified-Newton SQP on the KKT conditions, latency-shaped for TPU.
+    """Modified-Newton SQP on the KKT conditions, shaped for device latency.
 
-    The KKT matrix is inverted ONCE by Gauss–Jordan (the ~1 ms sequential
+    The KKT matrix is inverted ONCE by Gauss–Jordan (the sequential
     bottleneck, see ``gj_inverse``) and kept FROZEN: every Newton step is
-    then two matvecs plus one batched line search — microseconds.  For an
+    then two matvecs plus one batched line search.  For an
     LSQ objective with quadratic constraints the frozen-Jacobian iteration
     contracts fast near the solution; when the batched Armijo search cannot
     decrease ‖r‖² the matrix is re-factored at the current point (up to
@@ -182,17 +178,16 @@ def constrained_lsq(
         return gj_inverse(K)
 
     # one batched pass evaluates every backtracking candidate at once —
-    # a sequential halving loop pays (emulated-f64) k-sized matvec latency
-    # per trial, while the batched form is one (T, k) matmul
+    # a sequential halving loop pays k-sized matvec latency per trial,
+    # while the batched form is one (T, k) matmul
     _alphas = jnp.asarray(2.0, dt) ** -jnp.arange(14, dtype=dt)
 
     eps = jnp.finfo(dt).eps
 
     # the feasibility floor is frozen at the entry point: reduced_scale
     # varies slowly in y (warm starts sit near the solution) and evaluating
-    # it per Newton iteration costs m more emulated-f64 matvec chains per
-    # step on TPU; the caller-facing scale is still recomputed at the exit
-    # point below
+    # it per Newton iteration costs m more matvec chains per step; the
+    # caller-facing scale is still recomputed at the exit point below
     def _floor_at(y):
         scales = jnp.stack([reduced_scale(b, y) for b in bufs]) * con_mask
         return jnp.maximum(10.0 * kkt_tol, 32.0 * eps * jnp.max(scales))
@@ -251,7 +246,7 @@ def constrained_lsq(
 
     # least-squares multiplier estimate: λ0 = argmin ‖∇f + Jᵀλ‖ solved from
     # the m×m normal equations (m ≤ ~3).  λ0 = 0 costs 1-3 extra Newton
-    # iterations at ~1 solve_dense each (scripts/tpu_probe15.py).  ONE
+    # iterations at ~1 solve_dense each.  ONE
     # constraint evaluation (at λ=0) serves both the estimate and the
     # initial residual: r(y0, λ) = [rL(λ=0) + (Jᵀλ)·act, g], so no second
     # kkt_residual call is needed.

@@ -1,8 +1,8 @@
 """ctypes bindings for the in-tree C++ host kernels (``native/``).
 
-Compiles ``native/spkernels.cpp`` on first use (g++ -O3, cached as a shared
-library next to the source).  Falls back gracefully: callers check
-``available()`` and use scipy equivalents otherwise.
+Compiles ``native/spkernels.cpp`` on first use (g++ -O3, cached as an
+untracked shared library next to the source).  Falls back gracefully:
+callers check ``available()`` and use scipy equivalents otherwise.
 """
 
 from __future__ import annotations
@@ -32,10 +32,14 @@ def _load() -> Optional[ctypes.CDLL]:
     so = os.path.join(_native_dir(), "libspkernels.so")
     try:
         if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+            # build beside the target, then rename: a concurrent loader sees
+            # either no library or a complete one
+            tmp = f"{so}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", src, "-o", so],
+                ["g++", "-O3", "-march=native", "-shared", "-fPIC", src, "-o", tmp],
                 check=True, capture_output=True,
             )
+            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         i64p = ctypes.POINTER(ctypes.c_int64)
         f64p = ctypes.POINTER(ctypes.c_double)

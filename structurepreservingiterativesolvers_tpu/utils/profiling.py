@@ -1,16 +1,20 @@
 """Profiling and throughput instrumentation.
 
-TPU-native replacement for the reference's hand-rolled wall-clock phase
-timers (reference solvers.py:140-146,299-314): a context manager around
-``jax.profiler`` for device traces, plus throughput counters (nnz/s,
-iterations/s) computed from solve metadata.
+Replacement for the reference's hand-rolled wall-clock phase timers
+(reference solvers.py:140-146,299-314): a context manager around
+``jax.profiler`` for device traces, a median timer for work that ends in
+``block_until_ready``, the card's name and power limit for labelling device
+numbers, and throughput counters (nnz/s, iterations/s) computed from solve
+metadata.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
+import subprocess
 import time
-from typing import Optional
+from typing import Callable
 
 
 @contextlib.contextmanager
@@ -35,6 +39,37 @@ class Stopwatch:
     def mark(self, name: str):
         self.marks[name] = time.perf_counter() - self.t0
         return self.marks[name]
+
+
+def median_time(fn: Callable, reps: int = 5, warmup: int = 1) -> float:
+    """Median wall seconds of ``fn()`` (blocked until its outputs are
+    ready) over ``reps`` calls, after ``warmup`` untimed calls (compile)."""
+    import jax
+
+    for _ in range(warmup):
+        jax.block_until_ready(fn())
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts)
+
+
+def gpu_name_power_limit() -> str:
+    """``name, power.limit`` of the first GPU as nvidia-smi reports them, read
+    in a child process that does not touch JAX; "not available" without
+    nvidia-smi.  A card set below its maximum power runs slower under load,
+    so every device number is reported beside this."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "not available"
+    lines = r.stdout.strip().splitlines()
+    return lines[0].strip() if r.returncode == 0 and lines else "not available"
 
 
 def spmv_throughput(nnz: int, seconds: float) -> float:

@@ -1,9 +1,9 @@
 """Double-f32 arithmetic (ops/dd.py): error-free transforms and ~2^-48
 accuracy of the compound ops, validated against numpy longdouble.
 
-These primitives carry the mixed-precision constrained endgame on TPU
-(f64 emulation is ~10x slower there — scripts/tpu_probe14.py); on CPU the
-same code path must agree with native f64 to dd roundoff.
+These primitives carry the mixed-precision constrained endgame of systems
+stored in float32; they must agree with native f64 to dd roundoff.
+``chip_smoke.py`` repeats the error-free-transform checks on the GPU.
 """
 
 import numpy as np
@@ -154,7 +154,7 @@ def test_quadratic_dd_value_matches_f64():
 
 def test_dd_reduction_matches_f64():
     """catchup_buffers / update_buffers with dd_reduce=True (the mixed-mode
-    TPU path, scripts/tpu_probe18.py) agree with the native-f64 reduction to
+    path of f32 storage) agree with the native-f64 reduction to
     dd roundoff on an f32 system."""
     import jax.numpy as jnp
 

@@ -186,9 +186,14 @@ def test_report_tabulator_and_plots(tmp_path):
     table = report.tabulator(s, [gi, ci], filename=str(tmp_path / "tab"))
     assert (tmp_path / "tab.tex").exists()
     assert (tmp_path / "tab.csv").exists()
-    df = table["df"]
-    assert "gmres residual norm" in df.columns
-    assert "geosolve energy deviation" in df.columns
+    assert "gmres residual norm" in table["columns"]
+    assert "geosolve energy deviation" in table["columns"]
+    assert len(table["rows"]) == max(len(gi["res"]), len(ci["res"]))
+    assert table["rows"][0]["gmres residual norm"] == float(gi["res"][0])
+    import csv
+
+    with open(tmp_path / "tab.csv") as fh:
+        assert len(list(csv.DictReader(fh))) == len(table["rows"])
     p1 = report.convergence_plot(table, filename=str(tmp_path / "conv.pdf"))
     assert (tmp_path / "conv.pdf").exists()
 
@@ -264,3 +269,40 @@ def test_vmapped_batched_cgmres():
         xi, _ = cgmres(t.A, t.b, k=20, tol=1e-8, constraints=t.constraints())
         np.testing.assert_allclose(np.asarray(xs[i]), np.asarray(xi),
                                    rtol=1e-8, atol=1e-11)
+
+
+def test_markdown_table_formatter():
+    from structurepreservingiterativesolvers_tpu.experiments.report import (
+        markdown_table,
+    )
+
+    text = markdown_table([{"M": 16, "time": 0.00123, "ok": True},
+                           {"M": 32, "time": 1.5e-5, "extra": "x"}])
+    lines = text.splitlines()
+    assert lines[0].split("|")[1:-1] == [" M  ", " time     ", " ok   ",
+                                         " extra "]
+    assert set(lines[1]) == {"|", "-"}
+    assert lines[2] == "| 16 | 1.23e-03 | True |       |"
+    assert lines[3] == "| 32 | 1.50e-05 |      | x     |"
+
+
+def test_sweep_parallel_runs_serially_on_accelerator(monkeypatch, tmp_path,
+                                                     capsys):
+    """On a non-CPU backend ``parallel=True`` must not fan out processes
+    (each would reserve the device): the grid runs in this process."""
+    import subprocess
+
+    import jax
+
+    from structurepreservingiterativesolvers_tpu.experiments import error_sweep
+
+    def no_popen(*a, **k):
+        raise AssertionError("spawned a worker process on an accelerator")
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(subprocess, "Popen", no_popen)
+    merged = error_sweep.run_sweep(
+        grid=[(1, 1, 1e-6)], solvers=("Exact",), N=2, M=20, k=20,
+        tmpdir=str(tmp_path), parallel=True, max_processes=2)
+    assert [m["solver"] for m in merged] == ["Exact"]
+    assert "serially in this process" in capsys.readouterr().out

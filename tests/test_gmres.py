@@ -6,6 +6,7 @@ lkdv/SingleSolve.py:36-40): iterative solution must approach spsolve's.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
@@ -105,3 +106,36 @@ def test_cgs2_orthogonality_matches_mgs():
     # be at least as good as plain MGS (which degrades near convergence)
     assert losses["cgs2"] < 1e-12, losses
     assert losses["cgs2"] <= losses["mgs"] * 1.5 + 1e-13, losses
+
+
+@pytest.mark.parametrize("k1,n", [(21, 1000), (21, 8192), (9, 70000)])
+def test_cgs2_orthogonality_bounds(k1, n):
+    """A basis grown by CGS2 (two classical passes) from random vectors stays
+    orthonormal to roundoff: f64 and f32 (the f32 bound would be ~1e-3 with
+    reduced-precision matrix products)."""
+    from structurepreservingiterativesolvers_tpu.solvers.arnoldi import _cgs2
+
+    for dtype, bound in ((jnp.float64, 1e-13), (jnp.float32, 1e-5)):
+        W = RNG.standard_normal((k1, n))
+        Q = jnp.zeros((k1, n), dtype).at[0].set(
+            jnp.asarray(W[0] / np.linalg.norm(W[0]), dtype))
+        for j in range(k1 - 1):
+            w, _ = _cgs2(Q, jnp.asarray(W[j + 1], dtype), j)
+            Q = Q.at[j + 1].set(w / jnp.linalg.norm(w))
+        Qh = np.asarray(Q, np.float64)
+        assert np.abs(Qh @ Qh.T - np.eye(k1)).max() < bound, dtype
+
+
+def test_cgs2_and_mgs_take_same_steps():
+    """The default CGS2 and the reference's MGS give the same GMRES
+    iteration count and solution on a preconditioned heat system."""
+    from structurepreservingiterativesolvers_tpu import precond
+    from structurepreservingiterativesolvers_tpu.models import heat
+
+    s = heat.linforms(M=24)
+    pre = precond.chebyshev(s.A, degree=8)
+    x_c, i_c = gmres(s.A, s.b, k=60, tol=1e-10, pre=pre, ortho="cgs2")
+    x_m, i_m = gmres(s.A, s.b, k=60, tol=1e-10, pre=pre, ortho="mgs")
+    assert i_c["res"][-1] < 1e-10 and i_c["steps"] < 60
+    assert i_c["steps"] == i_m["steps"]
+    np.testing.assert_allclose(np.asarray(x_c), np.asarray(x_m), rtol=1e-8)

@@ -2,8 +2,8 @@
 
 The reference preconditions lkdvRK and swe with
 ``spilu(A, drop_tol=1e-4, fill_factor=10)`` (reference
-lkdvRK/Evolve.py:51-52, swe/TimedSolve.py:23-24).  Triangular solves don't
-map to the TPU, so the production stand-ins are RAS/block-Jacobi +
+lkdvRK/Evolve.py:51-52, swe/TimedSolve.py:23-24).  Triangular solves are
+sequential, so the production stand-ins are RAS/block-Jacobi +
 polynomial acceleration / inner-Krylov.  These tests run the EXACT
 reference preconditioner (densified ILU oracle, precond/ilu_oracle.py)
 through the same jitted solvers and assert the stand-ins reach comparable

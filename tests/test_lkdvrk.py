@@ -71,7 +71,7 @@ def test_one_step_error_small(sys2):
 
 def test_dg_mass_inverse_is_bsr(sys2):
     """The DG block mass inverse ships as BSR (the production consumer of
-    the format): step_update's consistent-field solves run as batched MXU
+    the format): step_update's consistent-field solves run as batched
     block matmuls, and they reproduce the host LU solve."""
     from structurepreservingiterativesolvers_tpu.ops.sparse import BSR
 

@@ -170,6 +170,34 @@ def test_sharded_amg_preconditioned_heat(mesh):
                                rtol=1e-8, atol=1e-10)
 
 
+def test_sharded_amg_replicates_indivisible_levels(mesh):
+    """Box aggregation gives ⌈C/3⌉² coarse rows, which the mesh need not
+    divide (heat M=2047 on 4 devices has a 683² level above the replication
+    threshold): such a level is replicated instead of failing to shard, and
+    the solve still matches the local one."""
+    from structurepreservingiterativesolvers_tpu.parallel import (
+        shard_preconditioner,
+    )
+    from structurepreservingiterativesolvers_tpu.precond.amg import amg
+
+    M = 31  # C=32: levels 32² (sharded) and 11² = 121 rows (8 ∤ 121)
+    s = heat.linforms(M=M)
+    pre = amg(s.A, grid=(M + 1, M + 1))
+    assert pre.levels[1].A.shape[0] == 121
+    x_ref, i_ref = cgmres(s.A, s.b, k=25, tol=1e-8,
+                          constraints=s.constraints(), pre=pre)
+    A, b, x0, cons = shard_system(
+        s.A, s.b, jnp.zeros_like(s.b), s.constraints(), mesh)
+    pre_sh = shard_preconditioner(pre, mesh, replicate_below=64)
+    assert ROWS in str(pre_sh.levels[0].A.data.sharding.spec)
+    assert pre_sh.levels[1].A.data.sharding.spec == jax.sharding.PartitionSpec()
+    x_sh, i_sh = cgmres(A, b, x0, k=25, tol=1e-8, constraints=cons, pre=pre_sh)
+    assert i_sh["steps"] == i_ref["steps"]
+    assert i_sh["safety"] is True
+    np.testing.assert_allclose(np.asarray(x_sh), np.asarray(x_ref),
+                               rtol=1e-8, atol=1e-10)
+
+
 def test_sharded_polynomial_preconditioner_swe(mesh):
     """swe's production pairing (skew-normal Chebyshev, the reference's ILU
     role, swe/TimedSolve.py:23-24) sharded: polynomial-in-A shards as the

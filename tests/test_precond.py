@@ -136,9 +136,8 @@ def test_amg_structured_transfers_match_host_galerkin():
 def test_amg_follows_system_dtype():
     """Regression for the round-3 f64 leak: the default TimedSolve builder
     must ship an AMG hierarchy in the SYSTEM dtype (f32 here), not the host
-    CSR's f64 — on TPU an f64 hierarchy runs the whole V-cycle (and, by
-    promotion, the Arnoldi body) in emulated double, ~2 s/iteration at
-    M=2048 (round-3 verdict weak #1)."""
+    CSR's f64 — an f64 hierarchy would silently promote the whole V-cycle
+    (and, by promotion, the Arnoldi body) of an f32 solve to f64."""
     import jax
 
     from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
@@ -242,3 +241,57 @@ def test_amg_device_setup_rejects_asymmetric():
     pre = amg(A_bad, grid=(C, C), setup="auto")
     _, info = gmres(s.A, s.b, k=30, tol=1e-8, pre=pre)
     assert info["res"][-1] < 1e-8
+
+
+def _chebyshev_coeffs(pre):
+    """Monomial coefficients of the polynomial ``Chebyshev.__call__``
+    applies, from running its recurrence on numpy polynomials in λ."""
+    P = np.polynomial.Polynomial
+    lam = P([0.0, 1.0])
+    theta = 0.5 * (pre.lmax + pre.lmin)
+    delta = 0.5 * (pre.lmax - pre.lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    x = P([1.0 / theta])
+    r = 1.0 - lam * x
+    d = (2.0 * rho / delta) * r
+    for _ in range(pre.degree - 1):
+        x = x + d
+        r = r - lam * d
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
+        rho = rho_new
+    return (x + d).coef
+
+
+@pytest.mark.parametrize("problem", ["heat32", "swe32-wrap"])
+def test_polynomial_preconditioners_match_dense(problem):
+    """Chebyshev and Neumann applies (chained sparse SpMVs) against p(A)v
+    evaluated densely in numpy: Horner on the recurrence's coefficients for
+    Chebyshev, ω Σ (I − ωD⁻¹A)^i D⁻¹ v for Neumann."""
+    from structurepreservingiterativesolvers_tpu.models import swe
+
+    s = heat.linforms(M=32) if problem == "heat32" else swe.linforms(M=32)
+    if problem == "swe32-wrap":
+        assert s.A.wrap  # periodic operator: shifts wrap around
+    A = s.A_csr.toarray()
+    n = A.shape[0]
+    v = RNG.standard_normal(n)
+
+    cheb = precond.chebyshev(s.A, degree=8)
+    y = np.zeros(n)
+    for c in _chebyshev_coeffs(cheb)[::-1]:
+        y = A @ y + c * v
+    got = np.asarray(cheb(jnp.asarray(v)))
+    np.testing.assert_allclose(got, y, rtol=0, atol=1e-9 * np.abs(y).max())
+
+    neu = precond.neumann(s.A, degree=4, omega=0.8)
+    dinv = 1.0 / np.diag(A)
+    B = np.eye(n) - 0.8 * dinv[:, None] * A
+    term = 0.8 * dinv * v
+    y = term.copy()
+    for _ in range(3):
+        term = B @ term
+        y = y + term
+    got = np.asarray(neu(jnp.asarray(v)))
+    np.testing.assert_allclose(got, y, rtol=0, atol=1e-12 * np.abs(y).max())

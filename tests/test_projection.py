@@ -91,3 +91,34 @@ def test_swe_gain_over_gmres_at_scale(swe32):
     dc = certified_deviations(s, xc)
     for nm in dg:
         assert dg[nm] / max(dc[nm], 1e-16) > 100.0, nm
+
+
+def test_first_import_inside_jit_trace():
+    """The solver imports this module lazily inside its jitted core, so its
+    module-level constants must not be created under a trace: a jnp array
+    built there would leak as a tracer into every later use."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import sys
+import jax, jax.numpy as jnp
+import structurepreservingiterativesolvers_tpu  # noqa: F401
+name = "structurepreservingiterativesolvers_tpu.constraints.projection"
+assert name not in sys.modules
+
+@jax.jit
+def first(x):
+    from structurepreservingiterativesolvers_tpu.constraints import projection
+    return x * jnp.asarray(projection._TAUS)[1]
+
+assert float(first(2.0)) == 1.0
+from structurepreservingiterativesolvers_tpu.constraints import projection
+assert float(jax.jit(lambda x: x * jnp.asarray(projection._TAUS)[2])(4.0)) == 1.0
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]

@@ -1,6 +1,7 @@
 """Utility-layer smoke tests (profiling counters, config, native fallback)."""
 
 import numpy as np
+import pytest
 
 from structurepreservingiterativesolvers_tpu import config
 from structurepreservingiterativesolvers_tpu.utils import profiling
@@ -18,9 +19,56 @@ def test_profiling_counters():
 
 def test_config_dtype_cpu():
     # under the test conftest we are on CPU with x64 enabled
-    assert not config.is_tpu()
     assert config.default_dtype() == np.dtype("float64")
     assert config.CTOL == 1e-12
+
+
+def test_default_dtype_force_override(monkeypatch):
+    monkeypatch.delenv("SPIS_FORCE_DTYPE", raising=False)
+    assert config.default_dtype() == np.dtype("float64")
+    monkeypatch.setenv("SPIS_FORCE_DTYPE", "float32")
+    assert config.default_dtype() == np.dtype("float32")
+
+
+def test_matmul_precision_is_highest():
+    """Importing the package pins matrix products to full precision, so f32
+    products never run as TF32 on GPUs with tensor cores."""
+    import jax
+
+    assert jax.config.jax_default_matmul_precision == "highest"
+
+
+@pytest.fixture
+def restore_cache_dir():
+    import jax
+
+    before = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path, restore_cache_dir):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself and the code
+    sets no other directory."""
+    import jax
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert config.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch, restore_cache_dir):
+    import os
+
+    import jax
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = config.enable_compile_cache()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(config.__file__)))
+    assert path == os.path.join(root, ".jax_cache")
+    assert os.path.isdir(path)
+    assert jax.config.jax_compilation_cache_dir == path
 
 
 def test_checkpoint_roundtrip(tmp_path):
